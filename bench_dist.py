@@ -1,33 +1,42 @@
-"""Distributed-pipeline scaling benchmark (BASELINE.json config 5).
+"""Distributed-pipeline scaling benchmark over the GPUs of one host.
 
 Runs the full filter -> join -> group-by -> sort pipeline over a 1-device
-and an N-device mesh and reports rows/s + scaling efficiency.  On this
-container only one real TPU chip exists, so by default this runs on the
-CPU backend with an emulated 8-device mesh (`--devices N`); on a real
-multi-chip slice the same code measures ICI scaling (target: >=80% linear,
-BASELINE.md).
+and an N-device mesh and reports rows/s and scaling efficiency
+(``--analyze``: a per-component breakdown and the measured exchange
+bytes, written to EXCHANGE.json).  Times are medians of warm runs ended
+by ``block_until_ready``; every line names the card and its power
+limit.  Exits non-zero when JAX finds no GPU.  The CPU rehearsal of the
+same path is in the tests (tests/test_parallel.py).
+
+Usage: ``python bench_dist.py [--devices N] [--analyze]``
 """
 import argparse
 import json
 import sys
-import time
 
 import numpy as np
 
 
-def run(n_rows: int, n_dim: int, devices: int, cpu: bool):
-    if cpu:
-        import os
-        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
-                                   f" --xla_force_host_platform_device_count={max(devices, 8)}")
+def _setup():
     import jax
-    if cpu:
-        jax.config.update("jax_platforms", "cpu")
 
-    from supersonic_tpu import (AggSpec, Aggregation, Const, DataType,
+    from supersonic_jax.bench.device import (card_line,
+                                             configure_compile_cache,
+                                             require_gpu)
+
+    configure_compile_cache()
+    require_gpu()
+    return jax, card_line()
+
+
+def run(n_rows: int, n_dim: int, devices: int):
+    jax, card = _setup()
+    from supersonic_jax.bench.device import median_seconds
+
+    from supersonic_jax import (AggSpec, Aggregation, Const, DataType,
                                 Filter, JoinType, KeyUniqueness, ScanTable,
                                 Table, TupleSchema, col)
-    from supersonic_tpu.parallel import (dist_group_aggregate,
+    from supersonic_jax.parallel import (dist_group_aggregate,
                                          dist_hash_join, dist_map, dist_sort,
                                          distribute_table, make_mesh,
                                          run_local_plan)
@@ -61,8 +70,6 @@ def run(n_rows: int, n_dim: int, devices: int, cpu: bool):
             out_cap_per_peer=256)
         return dist_sort(mesh, agg, ["g"], out_cap_per_peer=256)
 
-    import jax
-
     results = {}
     for P in (1, devices):
         mesh = make_mesh(P)
@@ -71,54 +78,34 @@ def run(n_rows: int, n_dim: int, devices: int, cpu: bool):
         per_peer = dfact._cap_hint
 
         stepped = jax.jit(lambda a, b: pipeline(mesh, a, b, per_peer))
-        out = stepped(dfact, ddim)
-        np.asarray(out.num_rows)  # compile + settle
-        best = float("inf")
-        for _ in range(3):
-            t0 = time.perf_counter()
-            out = stepped(dfact, ddim)
-            np.asarray(out.num_rows)
-            np.asarray(out.columns["sv"].values[:, :1])
-            best = min(best, time.perf_counter() - t0)
+        best = median_seconds(stepped, dfact, ddim)
         results[P] = n_rows / best
-        print(f"P={P}: {best*1e3:8.1f} ms  {results[P]/1e6:8.1f} M rows/s",
-              file=sys.stderr)
+        print(f"P={P}: {best*1e3:9.3f} ms  {results[P]/1e6:8.1f} M rows/s"
+              f"  [{card}]", file=sys.stderr)
     eff = results[devices] / (results[1] * devices)
-    if cpu:
-        print("NOTE: CPU-emulated mesh shares one host's cores across all "
-              "virtual devices — this validates the distributed path "
-              "functionally; scaling efficiency is only meaningful on a "
-              "real multi-chip slice (--tpu).", file=sys.stderr)
     print(json.dumps({
         "metric": "dist_pipeline_scaling_efficiency",
-        "value": round(eff, 3),
-        "unit": (f"fraction of linear (1->{devices} devices)"
-                 + ("; CPU-EMULATED, functional check only" if cpu else "")),
-        "vs_baseline": round(eff / 0.8, 3),
+        "value": eff,
+        "unit": f"fraction of linear (1->{devices} devices)",
+        "card": card,
     }))
 
 
-def analyze(n_rows: int, n_dim: int, devices: int, cpu: bool):
+def analyze(n_rows: int, n_dim: int, devices: int):
     """Component breakdown at each mesh size: local compute vs exchange
     time, shuffle bytes, and ring-join (ppermute overlap) vs repartition
-    join — the evidence base for BASELINE.md's distributed section."""
-    if cpu:
-        import os
-        os.environ["XLA_FLAGS"] = (
-            os.environ.get("XLA_FLAGS", "")
-            + f" --xla_force_host_platform_device_count={max(devices, 8)}")
-    import jax
-    if cpu:
-        jax.config.update("jax_platforms", "cpu")
+    join."""
+    jax, card = _setup()
+    from supersonic_jax.bench.device import median_seconds
 
-    from supersonic_tpu import (AggSpec, Aggregation, Const, DataType,
+    from supersonic_jax import (AggSpec, Aggregation, Const, DataType,
                                 Filter, HashJoin, JoinType, KeyUniqueness,
                                 ScanTable, Table, TupleSchema, col)
-    from supersonic_tpu.parallel import (dist_group_aggregate,
+    from supersonic_jax.parallel import (dist_group_aggregate,
                                          dist_hash_join, dist_map,
                                          dist_sort, distribute_table,
                                          make_mesh, run_local_plan, shuffle)
-    from supersonic_tpu.parallel.dist import (_key_dest_fn,
+    from supersonic_jax.parallel.dist import (_key_dest_fn,
                                               dist_hash_join_ring)
 
     rng = np.random.default_rng(42)
@@ -133,17 +120,8 @@ def analyze(n_rows: int, n_dim: int, devices: int, cpu: bool):
         {"pk": np.arange(n_dim, dtype=np.int32),
          "g": rng.integers(0, 64, n_dim).astype(np.int32)})
 
-    def timed(fn, *args, reps=3):
-        out = fn(*args)
-        np.asarray(jax.tree_util.tree_leaves(out)[0])  # compile
-        best = float("inf")
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            out = fn(*args)
-            for leaf in jax.tree_util.tree_leaves(out):
-                leaf.block_until_ready()
-            best = min(best, time.perf_counter() - t0)
-        return best, out
+    def timed(fn, *args):
+        return median_seconds(fn, *args), fn(*args)
 
     rows_per = {}
     print(f"{'P':>2} {'component':<26} {'ms':>9} {'M rows/s':>9}",
@@ -159,8 +137,8 @@ def analyze(n_rows: int, n_dim: int, devices: int, cpu: bool):
 
         def rec(name, secs, P=P):
             table[(P, name)] = secs
-            print(f"{P:>2} {name:<26} {secs*1e3:>9.1f} "
-                  f"{n_rows/secs/1e6:>9.1f}", file=sys.stderr)
+            print(f"{P:>2} {name:<26} {secs*1e3:>9.3f} "
+                  f"{n_rows/secs/1e6:>9.1f}  [{card}]", file=sys.stderr)
 
         # (1) embarrassingly-parallel local compute: filter
         filt = jax.jit(lambda d: dist_map(
@@ -208,10 +186,9 @@ def analyze(n_rows: int, n_dim: int, devices: int, cpu: bool):
         secs, _ = timed(srt, agged)
         rec("sort(sample+range)", secs)
 
-        # (7) MEASURED exchange accounting (VERDICT r3 #7): the [P,P]
-        # src->dst row matrices the shuffles actually moved, as bytes —
-        # the artifact behind BASELINE.md's ICI projection
-        from supersonic_tpu.parallel.dist import table_row_bytes
+        # (7) measured exchange accounting: the [P,P] src->dst row
+        # matrices the shuffles actually moved, as bytes
+        from supersonic_jax.parallel.dist import table_row_bytes
 
         def measure(d, keys):
             st = {}
@@ -227,12 +204,12 @@ def analyze(n_rows: int, n_dim: int, devices: int, cpu: bool):
         # pregroup -> shuffle: measure the bytes of the pregrouped stream
         pre = jax.jit(lambda d: dist_map(
             mesh, lambda t: run_local_plan(
-                lambda tt: __import__("supersonic_tpu").BestEffortGroupAggregate(
+                lambda tt: __import__("supersonic_jax").BestEffortGroupAggregate(
                     ["g"], [AggSpec(Aggregation.SUM, "v", "sv"),
                             AggSpec(Aggregation.COUNT, None, "c")],
                     ScanTable(tt)), t), d))(joined)
         ex["groupby_pregroup_shuffle"] = measure(pre, ["g"])
-        # ring join: the build side rotates P-1 times over ICI; bytes are
+        # ring join: the build side rotates P-1 times; bytes are
         # computed from the MEASURED per-shard live build rows
         build_rows = int(np.sum(np.asarray(ddim_bykey.num_rows)))
         rb = table_row_bytes(ddim_bykey.schema)
@@ -255,9 +232,8 @@ def analyze(n_rows: int, n_dim: int, devices: int, cpu: bool):
         "value": round(table[(devices, 'join(ring/ppermute)')]
                        / max(table[(devices, 'join(repartition)')], 1e-12),
                        3),
-        "unit": "ring/repartition join time ratio at max P (CPU-emulated)"
-        if cpu else "ring/repartition join time ratio at max P",
-        "vs_baseline": 1.0,
+        "unit": "ring/repartition join time ratio at max P",
+        "card": card,
     }))
 
 
@@ -265,13 +241,11 @@ if __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=1_000_000)
     ap.add_argument("--dim", type=int, default=100_000)
-    ap.add_argument("--devices", type=int, default=8)
-    ap.add_argument("--tpu", action="store_true",
-                    help="use the default (TPU) backend instead of CPU")
+    ap.add_argument("--devices", type=int, default=4)
     ap.add_argument("--analyze", action="store_true",
                     help="component breakdown across a mesh-size sweep")
     a = ap.parse_args()
     if a.analyze:
-        analyze(a.rows, a.dim, a.devices, cpu=not a.tpu)
+        analyze(a.rows, a.dim, a.devices)
     else:
-        run(a.rows, a.dim, a.devices, cpu=not a.tpu)
+        run(a.rows, a.dim, a.devices)

@@ -1,6 +1,6 @@
-"""The reference benchmark example workloads, on the TPU engine.
+"""The reference benchmark example workloads, on this engine.
 
-Mirrors /root/reference/supersonic/benchmark/examples/operation_example.cc
+Mirrors supersonic/benchmark/examples/operation_example.cc
 :24-90: (1) 1M-row GROUP BY over 50 string keys with MAX; (2) Compute
 ``col0 * (sin(col2) + exp(col1))``; (3) two-key sort (ASC, DESC); (4)
 merge-union of two sorted inputs; (5) LEFT_OUTER unique hash join of a
@@ -19,7 +19,7 @@ import numpy as np
 
 
 def build_tables(rows: int):
-    from supersonic_tpu import DataType, Table, TupleSchema
+    from supersonic_jax import DataType, Table, TupleSchema
 
     rng = np.random.default_rng(7)
     keys = [f"key_{i:02d}" for i in range(50)]
@@ -47,12 +47,12 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from supersonic_tpu import (AggSpec, Aggregation, Compute, Cos, Exp,
+    from supersonic_jax import (AggSpec, Aggregation, Compute, Cos, Exp,
                                 GroupAggregate, GroupAggregateOptions,
                                 HashJoin, JoinType, KeyUniqueness,
                                 MergeUnionAll, Projector, ScanTable, Sin,
                                 Sort, SortKey, col)
-    from supersonic_tpu.bench import benchmark_plan, format_stats, save_dot
+    from supersonic_jax.bench import benchmark_plan, format_stats, save_dot
 
     t = build_tables(args.rows)
 

@@ -166,7 +166,7 @@ struct Bench {
     }
 
     // STRING-key join: probe 8M random keys over a 1M-distinct-string
-    // build side (the dictionary-code dense path on the TPU engine)
+    // build side (the dictionary-code dense path on the JAX engine)
     TupleSchema sj_schema;
     sj_schema.add_attribute(Attribute("fk", STRING, NOT_NULLABLE));
     sj_schema.add_attribute(Attribute("v", FLOAT, NOT_NULLABLE));
@@ -337,8 +337,8 @@ struct Bench {
   }
 };
 
-// BASELINE.json config-scale workloads (VERDICT r3 next #4): the exact
-// shapes scripts/compile_times.py runs on the TPU —
+// BASELINE.json config-scale workloads: the exact
+// shapes the JAX engine runs at config scale —
 //   config 3: sort 100M rows (k int32 uniform [0,2^30), v f32) by
 //             (k ASC, v DESC)
 //   config 4: join probe 100M (fk in [0,1M), v f32) x build 1M UNIQUE,
@@ -467,7 +467,7 @@ struct Cfg2Bench {
 
 int main(int argc, char** argv) {
   if (argc > 1 && std::string(argv[1]) == "--hybrid") {
-    // spilling hybrid aggregate at the TPU engine's shape: 8M rows,
+    // spilling hybrid aggregate at the JAX engine's shape: 8M rows,
     // 1M distinct keys, 16 MB quota (forces the disk path)
     Bench bench;
     bench.alloc = HeapBufferAllocator::Get();

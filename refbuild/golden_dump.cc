@@ -3,8 +3,8 @@
 // inputs, and dumps both the inputs and the query outputs via FileSink
 // (cursor/infrastructure/file_io.cc:194) in the reference's binary columnar
 // wire format.  tests/test_golden.py reads these files back with
-// supersonic_tpu/io/file_io.py::read_reference_file, runs the same plans
-// through the TPU engine, and asserts row-for-row equality — the
+// supersonic_jax/io/file_io.py::read_reference_file, runs the same plans
+// through the JAX engine, and asserts row-for-row equality — the
 // bit-exactness correctness loop against the actual C++ engine (not a
 // Python model of it).
 //
@@ -637,7 +637,7 @@ void CaseForeignFilter() {
 // Serialization interop: an ExpressionDescription proto built here is
 // (a) deserialized by the reference's BuildExpressionFromProto
 // (serialization/build_expression_from_proto.cc:754) and evaluated, and
-// (b) dumped as raw wire bytes for the TPU engine's
+// (b) dumped as raw wire bytes for the JAX engine's
 // build_expression_from_proto_bytes to consume — proving the two engines
 // agree from the SAME serialized predicate.
 void CaseProtoExpr() {
@@ -756,7 +756,7 @@ void CaseToString() {
 
 // Stateful (cross-row) expressions: Changed / RunningSum / Smudge /
 // SmudgeIf / RunningMinWithFlush (stateful_expressions.h:30-71).  The
-// reference carries state across 1024-row views; the TPU engine computes
+// reference carries state across 1024-row views; the JAX engine computes
 // the same semantics as whole-column parallel scans (exprs/stateful.py).
 void CaseStateful() {
   TupleSchema schema;
@@ -789,7 +789,7 @@ void CaseStateful() {
   RunAndDump("stateful", Compute(expr, ScanView(table.view())));
 }
 
-// String transforms incl. two-non-constant-column Concat (the TPU
+// String transforms incl. two-non-constant-column Concat (the JAX
 // engine's cross-product-dictionary device path) and the MySQL-style
 // Substring semantics (string_expressions.h:73-102).
 void CaseStringOps() {

@@ -2,7 +2,7 @@
 
 Usage: python multihost_worker.py <coordinator_port> <process_id>
 
-Each process drives supersonic_tpu.parallel.multihost end-to-end on the
+Each process drives supersonic_jax.parallel.multihost end-to-end on the
 CPU backend: ``initialize`` (jax.distributed handshake over localhost) ->
 ``global_mesh`` spanning both processes' virtual devices ->
 ``dist_group_aggregate`` over a table distributed across the global mesh.
@@ -28,7 +28,7 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 
 try:
-    from supersonic_tpu.parallel import multihost
+    from supersonic_jax.parallel import multihost
 
     multihost.initialize(coordinator_address=f"localhost:{port}",
                          num_processes=2, process_id=pid)
@@ -44,9 +44,9 @@ if not multihost.is_multihost() or len(jax.devices()) != 8:
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from supersonic_tpu import (AggSpec, Aggregation, DataType, Table,  # noqa: E402
+from supersonic_jax import (AggSpec, Aggregation, DataType, Table,  # noqa: E402
                             TupleSchema)
-from supersonic_tpu.parallel import (dist_group_aggregate,  # noqa: E402
+from supersonic_jax.parallel import (dist_group_aggregate,  # noqa: E402
                                      distribute_table)
 
 mesh = multihost.global_mesh()

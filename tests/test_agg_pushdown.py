@@ -8,8 +8,8 @@ row_hash_set.cc)."""
 import numpy as np
 import pytest
 
-import supersonic_tpu.ops.aggregate as AG
-from supersonic_tpu import (AggSpec, Aggregation, Const, DataType, Filter,
+import supersonic_jax.ops.aggregate as AG
+from supersonic_jax import (AggSpec, Aggregation, Const, DataType, Filter,
                             GroupAggregate, GroupAggregateOptions, HashJoin,
                             JoinType, KeyUniqueness, Projector, ScanTable,
                             Sort, SortKey, Table, TupleSchema, col, execute)

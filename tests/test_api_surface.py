@@ -13,7 +13,7 @@ import re
 
 import pytest
 
-from supersonic_tpu import (AddDay, AggregateClustersWithSpecifiedOutputBlockSize,
+from supersonic_jax import (AddDay, AggregateClustersWithSpecifiedOutputBlockSize,
                             AggSpec, Aggregation, Compute,
                             ConcatWithSeparator, Const, ConstBinary,
                             ConstDataType,
@@ -26,14 +26,14 @@ from supersonic_tpu import (AddDay, AggregateClustersWithSpecifiedOutputBlockSiz
                             SupersonicFingerprint, SupersonicHash, Table,
                             ToDegrees, ToRadians, TrailingSubstring,
                             TupleSchema, TypedConst, col, execute)
-from supersonic_tpu.types import TypeError_
+from supersonic_jax.types import TypeError_
 
 REF = pathlib.Path("/root/reference/supersonic")
 
 
 @pytest.mark.skipif(not REF.exists(), reason="reference tree not present")
 def test_every_reference_public_factory_exists():
-    import supersonic_tpu as st
+    import supersonic_jax as st
 
     um = (REF / "supersonic.h").read_text()
     hdrs = re.findall(r'#include "(supersonic/[^"]+)"', um)

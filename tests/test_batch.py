@@ -3,7 +3,7 @@ tests)."""
 import numpy as np
 import pytest
 
-from supersonic_tpu import (DOUBLE, INT64, STRING, Attribute, SchemaError,
+from supersonic_jax import (DOUBLE, INT64, STRING, Attribute, SchemaError,
                             Table, TupleSchema, concat_tables)
 
 
@@ -74,8 +74,8 @@ def test_pytree_roundtrip():
 
 
 def test_enum_column():
-    from supersonic_tpu import EnumDefinition, DataType, ScanTable, Filter, col, Const, execute
-    from supersonic_tpu.types import DataType as DT
+    from supersonic_jax import EnumDefinition, DataType, ScanTable, Filter, col, Const, execute
+    from supersonic_jax.types import DataType as DT
     colors = EnumDefinition(("red", "green", "blue"))
     schema = TupleSchema.of(Attribute("c", DT.ENUM, True, colors),
                             ("v", INT64))
@@ -92,7 +92,7 @@ def test_gather_arrays_packs_dtype_groups():
     # 32-bit bitcast groups, 64-bit exact-dtype groups, and bools
     import numpy as np
     import jax.numpy as jnp
-    from supersonic_tpu.batch import gather_arrays
+    from supersonic_jax.batch import gather_arrays
     rng = np.random.default_rng(4)
     n = 257
     idx = jnp.asarray(rng.integers(0, n, 100).astype(np.int32))

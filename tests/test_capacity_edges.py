@@ -1,4 +1,4 @@
-"""Capacity-boundary stress tests (VERDICT r1 #8).
+"""Capacity-boundary stress tests.
 
 Pins the engine's behavior at the edges the large-scale configs cross:
 
@@ -13,12 +13,12 @@ Pins the engine's behavior at the edges the large-scale configs cross:
 import numpy as np
 import pytest
 
-from supersonic_tpu import (AggSpec, Aggregation, DataType, GroupAggregate,
+from supersonic_jax import (AggSpec, Aggregation, DataType, GroupAggregate,
                             GroupAggregateOptions, HashJoin, JoinType,
                             KeyUniqueness, ScanTable, Table, TupleSchema,
                             execute)
-from supersonic_tpu.exprs.base import EvaluationError
-from supersonic_tpu.ops import aggregate as agg_mod
+from supersonic_jax.exprs.base import EvaluationError
+from supersonic_jax.ops import aggregate as agg_mod
 
 
 def _join_tables(n_probe, n_build, dup, seed=0):

@@ -22,8 +22,8 @@ import math
 import numpy as np
 import pytest
 
-import supersonic_tpu as E
-from supersonic_tpu import (Compute, Const, DataType, ScanTable, Table,
+import supersonic_jax as E
+from supersonic_jax import (Compute, Const, DataType, ScanTable, Table,
                             TupleSchema, col, execute)
 
 # --------------------------------------------------------------------------
@@ -584,7 +584,7 @@ def test_catalog_coverage():
     """Every device-evaluable operator in the deserialization catalog has
     a conformance case above (host-side and reference-unimplemented ids
     excluded and documented in io/serialization.py)."""
-    from supersonic_tpu.io import serialization as S
+    from supersonic_jax.io import serialization as S
 
     covered = set(CASES)
     # ids exercised under a different case name here

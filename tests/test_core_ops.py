@@ -2,7 +2,7 @@
 (reference analogue: cursor/core/*_test.cc via OperationTest)."""
 import pytest
 
-from supersonic_tpu import (BOOL, DOUBLE, INT64, STRING, Coalesce, Compute,
+from supersonic_jax import (BOOL, DOUBLE, INT64, STRING, Coalesce, Compute,
                             Const, Filter, Generate, Limit, Project, Projector,
                             RandInt32, ScanTable, Sequence, Table, TupleSchema,
                             col, execute)
@@ -90,20 +90,19 @@ def test_empty_input():
 
 
 def test_scan_with_selection():
-    from supersonic_tpu import ScanTableWithSelection
+    from supersonic_jax import ScanTableWithSelection
     t = make_table()
     out = execute(ScanTableWithSelection(t, [4, 0, 2]))
     assert [r[0] for r in out.to_pylist()] == [5, 1, None]
 
 
 def test_filter_tiled_compaction_path():
-    # capacity above _TILED_MIN exercises the two-phase tiled compaction
-    # (batched per-tile sort + in-order stitched writes)
+    # a capacity past every power-of-two tile size: the scatter
+    # compaction must keep the survivors stable at any length
     import numpy as np
-    from supersonic_tpu import (DataType, Filter, ScanTable, Table,
+    from supersonic_jax import (DataType, Filter, ScanTable, Table,
                                 TupleSchema, col, execute)
-    from supersonic_tpu.ops.filter import _TILED_MIN
-    n = _TILED_MIN + 12345  # non-multiple of the tile size
+    n = 4 * 32768 + 12345
     rng = np.random.default_rng(3)
     v = rng.integers(0, 100, n).astype(np.int32)
     x = rng.random(n).astype(np.float32)

@@ -6,12 +6,12 @@ error-flag host sync."""
 import numpy as np
 import pytest
 
-from supersonic_tpu import (AggSpec, Aggregation, Column, Const, DataType,
+from supersonic_jax import (AggSpec, Aggregation, Column, Const, DataType,
                             Equal, Filter, GroupAggregate, HashJoin,
                             JoinType, KeyUniqueness, ScanTable, Sort, Table,
                             TupleSchema, col, execute)
-from supersonic_tpu.exprs.base import EvaluationError
-from supersonic_tpu.ops import set_debug_checks
+from supersonic_jax.exprs.base import EvaluationError
+from supersonic_jax.ops import set_debug_checks
 
 
 @pytest.fixture

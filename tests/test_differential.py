@@ -4,11 +4,11 @@ strategy)."""
 import numpy as np
 import pytest
 
-from supersonic_tpu import (DOUBLE, INT64, STRING, AggSpec, Aggregation,
+from supersonic_jax import (DOUBLE, INT64, STRING, AggSpec, Aggregation,
                             Filter, GroupAggregate, HashJoin, JoinType,
                             KeyUniqueness, ScanTable, Sort, SortKey, Table,
                             TupleSchema, col, execute)
-from supersonic_tpu.reference import ref_engine as ref
+from supersonic_jax.reference import ref_engine as ref
 
 
 def rand_table(rng, n, null_p=0.15):
@@ -127,7 +127,7 @@ def test_join_not_unique_differential(seed, join_type, allow_dense):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_extended_sort_limit_differential(seed):
-    from supersonic_tpu import ExtendedSort
+    from supersonic_jax import ExtendedSort
     rng = np.random.default_rng(seed + 70)
     t, rows = rand_table(rng, 70)
     got = execute(ExtendedSort([("x", False), ("v", True)], ScanTable(t),
@@ -138,7 +138,7 @@ def test_extended_sort_limit_differential(seed):
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_dense_multikey_group_differential(seed):
-    # non-nullable small-domain keys take the composite dense Pallas path
+    # non-nullable small-domain keys take the composite dense path
     rng = np.random.default_rng(seed + 80)
     n = 90
     schema = TupleSchema.of(("a", INT64, False), ("s", STRING, False),

@@ -3,7 +3,7 @@
 ERROR_MEMORY_EXCEEDED-style capacity failures, SURVEY.md §5.3)."""
 import pytest
 
-from supersonic_tpu import (INT64, AggSpec, Aggregation, EvaluationError,
+from supersonic_jax import (INT64, AggSpec, Aggregation, EvaluationError,
                             Filter, GroupAggregate, GroupAggregateOptions,
                             HashJoin, JoinType, KeyUniqueness, Project,
                             Projector, ScanTable, SchemaError, Table,
@@ -21,7 +21,7 @@ def test_missing_column_is_bind_error():
 
 
 def test_non_bool_filter_predicate():
-    from supersonic_tpu import TypeError_
+    from supersonic_jax import TypeError_
     with pytest.raises(TypeError_):
         execute(Filter(col("k") + 1, ScanTable(make_table())))
 
@@ -46,7 +46,7 @@ def test_join_overflow_flags():
 def test_cancellation_before_dispatch():
     """Cursor::Interrupt analogue (cursor.h:160-166): a pre-interrupted
     token fails the query at the first poll point."""
-    from supersonic_tpu import CancellationToken, Interrupted
+    from supersonic_jax import CancellationToken, Interrupted
 
     tok = CancellationToken()
     tok.interrupt()
@@ -60,7 +60,7 @@ def test_cancellation_mid_spill(tmp_path):
     run loop; here the poll points are the host chunk boundaries)."""
     import numpy as np
 
-    from supersonic_tpu import (CancellationToken, Interrupted,
+    from supersonic_jax import (CancellationToken, Interrupted,
                                 SortWithTempDirPrefix)
 
     class FlipAfter(CancellationToken):

@@ -1,6 +1,5 @@
-"""Measured exchange-byte accounting (VERDICT r3 next #7): the >=80%
-ICI-scaling projection must rest on numbers produced by code, not prose.
-``shuffle(..., stats_out=...)`` returns the [P, P] src->dst live-row
+"""Measured exchange-byte accounting: a scaling projection must rest on
+numbers produced by code, not prose.  ``shuffle(..., stats_out=...)`` returns the [P, P] src->dst live-row
 matrix actually exchanged; here it is checked against ground truth
 computed on the host from the same data + destination function."""
 import numpy as np
@@ -8,8 +7,8 @@ import pytest
 
 import jax
 
-from supersonic_tpu import DataType, Table, TupleSchema
-from supersonic_tpu.parallel import dist as D
+from supersonic_jax import DataType, Table, TupleSchema
+from supersonic_jax.parallel import dist as D
 
 
 @pytest.fixture(scope="module")
@@ -62,7 +61,7 @@ def test_shuffle_sent_matrix_matches_ground_truth(mesh):
 
 
 def test_offmesh_share_tracks_uniform_model(mesh):
-    """Analytic model behind the BASELINE.md ICI projection: a uniform
+    """Analytic model behind the exchange-bytes projection: a uniform
     key hash sends ~ (P-1)/P of live rows off-shard."""
     t = _make(n=20000, seed=3)
     P_ = mesh.devices.size

@@ -5,7 +5,7 @@ import math
 
 import pytest
 
-from supersonic_tpu import (BOOL, DOUBLE, INT32, INT64, STRING, Case, CastTo,
+from supersonic_jax import (BOOL, DOUBLE, INT32, INT64, STRING, Case, CastTo,
                             Compute, Const, DataType, DivideNulling,
                             EvaluationError, If, IfNull, In, IsNull, Null,
                             ParseStringNulling, ScanTable, Sequence, Table,
@@ -139,7 +139,7 @@ def test_modulus():
 
 
 def test_cpp_division_truncates_toward_zero():
-    from supersonic_tpu import CppDivide
+    from supersonic_jax import CppDivide
     schema = TupleSchema.of(("a", INT64),)
     assert eval_expr(CppDivide(col("a"), Const(2)),
                      data={"a": [-3, 3, -4]}, schema=schema) == [-1, 1, -2]
@@ -156,8 +156,8 @@ def test_constant_subtrees_fold_in_compiled_hlo():
 
     import jax
 
-    from supersonic_tpu import Compute, Const, ScanTable
-    from supersonic_tpu.ops.base import compile_plan
+    from supersonic_jax import Compute, Const, ScanTable
+    from supersonic_jax.ops.base import compile_plan
 
     t = Table.from_data(TupleSchema.of(("a", INT64)), {"a": [1, 2, 3]})
     plan = Compute((col("a") + (Const(2) + Const(3) * Const(4))).as_("o"),

@@ -4,7 +4,7 @@ import math
 
 import pytest
 
-from supersonic_tpu import (BOOL, DOUBLE, INT64, STRING, Abs, AddDays,
+from supersonic_jax import (BOOL, DOUBLE, INT64, STRING, Abs, AddDays,
                             AddMonths, Ceil, Changed, Compute, Concat, Const,
                             DataType, Day, EvaluationError, Exp, Floor,
                             FromUnixTime, Hour, IsFinite, IsNaN, Length, Ln,
@@ -149,8 +149,8 @@ def test_makedate():
 
 
 def test_makedate_pre_epoch_signals():
-    from supersonic_tpu import Compute, ScanTable, Table, execute
-    from supersonic_tpu.ops.base import EvaluationError
+    from supersonic_jax import Compute, ScanTable, Table, execute
+    from supersonic_jax.ops.base import EvaluationError
 
     S = TupleSchema.of(("y", INT64), ("m", INT64), ("d", INT64))
     t = Table.from_data(S, {"y": [1969], "m": [12], "d": [31]})
@@ -268,7 +268,7 @@ def test_concat_three_columns_and_nulls():
 def test_concat_sort_on_result():
     # the cross dictionary must stay order-preserving: ORDER BY on the
     # concat output codes == ORDER BY on the strings
-    from supersonic_tpu import Sort, SortKey
+    from supersonic_jax import Sort, SortKey
     data = {"a": ["b", "a", "ab"], "b": ["c", "c", "b"]}
     t = Table.from_data(S2, data)
     out = execute(Sort([SortKey("cc")],
@@ -278,8 +278,8 @@ def test_concat_sort_on_result():
 
 
 def test_format():
-    from supersonic_tpu import Format
-    from supersonic_tpu.types import TypeError_
+    from supersonic_jax import Format
+    from supersonic_jax.types import TypeError_
     data = {"x": [1.0]}
     assert eval_expr(Format(Const(3.14159), Const(3)), data, NUM) == ["3.142"]
     assert eval_expr(Format(Const(2.5), Const(0)), data, NUM) == ["2"] or \
@@ -292,21 +292,21 @@ def test_format():
 
 
 def test_host_format_number():
-    from supersonic_tpu.ops.host import format_number
+    from supersonic_jax.ops.host import format_number
     t = Table.from_data(NUM, {"x": [1.5, None, -0.25]})
     out = format_number(t, "x", 2, "fx")
     assert [r[-1] for r in out.to_pylist()] == ["1.50", None, "-0.25"]
 
 
 def test_host_concat_columns():
-    from supersonic_tpu.ops.host import concat_columns
+    from supersonic_jax.ops.host import concat_columns
     t = Table.from_data(S2, {"a": ["x", None], "b": ["y", "z"]})
     out = concat_columns(t, ["a", "b"], "ab", separator="/")
     assert [r[-1] for r in out.to_pylist()] == ["x/y", None]
 
 
 def test_long_tail_math():
-    from supersonic_tpu import (Atan2, CeilToInt, Cot, FloorToInt,
+    from supersonic_jax import (Atan2, CeilToInt, Cot, FloorToInt,
                                 LogNulling, RoundWithMultiplier, TruncToInt)
     data = {"x": [2.5, -2.5, None]}
     assert eval_expr(CeilToInt(col("x")), data, NUM) == [3, -2, None]
@@ -324,8 +324,8 @@ def test_long_tail_math():
 
 
 def test_cast_policies():
-    from supersonic_tpu import CastNulling, CastSignaling, DataType
-    from supersonic_tpu import EvaluationError
+    from supersonic_jax import CastNulling, CastSignaling, DataType
+    from supersonic_jax import EvaluationError
     data = {"x": [100.0, 1e12, None]}
     # nulling: overflow of INT32 -> NULL
     assert eval_expr(CastNulling(DataType.INT32, col("x")), data, NUM) == \
@@ -335,7 +335,7 @@ def test_cast_policies():
 
 
 def test_bitwise_andnot_and_date_to_datetime():
-    from supersonic_tpu import BitwiseAndNot, DataType, DateToDatetime
+    from supersonic_jax import BitwiseAndNot, DataType, DateToDatetime
     I = TupleSchema.of(("a", INT64), ("b", INT64))
     assert eval_expr(BitwiseAndNot(col("a"), col("b")),
                      {"a": [0b1100], "b": [0b1010]}, I) == [0b0100]
@@ -348,9 +348,9 @@ def test_bitwise_andnot_and_date_to_datetime():
 def test_pow_policies():
     """Reference POW policies (expression_traits.h:1329-1370): the domain
     violation is negative base with NON-integer exponent."""
-    from supersonic_tpu import (Compute, PowNulling, PowQuiet, PowSignaling,
+    from supersonic_jax import (Compute, PowNulling, PowQuiet, PowSignaling,
                                 ScanTable, Table, execute)
-    from supersonic_tpu.ops.base import EvaluationError
+    from supersonic_jax.ops.base import EvaluationError
 
     S = TupleSchema.of(("b", DOUBLE), ("e", DOUBLE))
     data = {"b": [2.0, -2.0, -2.0], "e": [3.0, 2.0, 0.5]}
@@ -364,14 +364,14 @@ def test_pow_policies():
                         ScanTable(t)))
 
 
-# --- deferred-dictionary rendering (VERDICT r3 next #10) --------------------
+# --- deferred-dictionary rendering ------------------------------------------
 
 def test_deferred_tostring_float_and_double():
     import numpy as np
 
-    from supersonic_tpu import (Compute, DataType, ScanTable, Table,
+    from supersonic_jax import (Compute, DataType, ScanTable, Table,
                                 ToString, TupleSchema, col, execute)
-    from supersonic_tpu.ops.host import _fmt_double, _fmt_float
+    from supersonic_jax.ops.host import _fmt_double, _fmt_float
 
     rng = np.random.default_rng(0)
     f = np.concatenate([rng.random(40, dtype=np.float32) * 100,
@@ -394,7 +394,7 @@ def test_deferred_tostring_survives_downstream_row_movement():
     and sorting AFTER the ToString must keep value<->string pairing."""
     import numpy as np
 
-    from supersonic_tpu import (Compute, Const, DataType, Filter,
+    from supersonic_jax import (Compute, Const, DataType, Filter,
                                 ScanTable, Sort, Table, ToString,
                                 TupleSchema, col, execute)
 
@@ -416,7 +416,7 @@ def test_deferred_tostring_survives_downstream_row_movement():
 def test_deferred_format_column():
     import numpy as np
 
-    from supersonic_tpu import (Compute, DataType, Format, ScanTable,
+    from supersonic_jax import (Compute, DataType, Format, ScanTable,
                                 Table, TupleSchema, col, execute)
 
     d = np.array([1.23456, -2.5, 0.0, 1e6, 0.125])
@@ -430,7 +430,7 @@ def test_deferred_format_column():
 def test_deferred_dateformat_matches_domain_lut():
     import numpy as np
 
-    from supersonic_tpu import (Compute, DataType, DateFormat, ScanTable,
+    from supersonic_jax import (Compute, DataType, DateFormat, ScanTable,
                                 Table, TupleSchema, col, execute)
 
     rng = np.random.default_rng(2)
@@ -447,7 +447,7 @@ def test_deferred_dateformat_matches_domain_lut():
 
 
 def test_makedate_signals_makedatetime_nulls():
-    """Signaling parity (VERDICT r4 missing #3): MAKEDATE of a pre-epoch
+    """Signaling parity: MAKEDATE of a pre-epoch
     date raises an evaluation failure (can_fail trait,
     expression_traits.h:1772; MakeDateFailer, date_evaluators.cc:271-287)
     while MAKEDATETIME sets the row NULL instead (the reference's
@@ -455,10 +455,10 @@ def test_makedate_signals_makedatetime_nulls():
     date_bound_expressions.cc:123-131)."""
     import pytest
 
-    from supersonic_tpu import (Compute, DataType, ScanTable, Table,
+    from supersonic_jax import (Compute, DataType, ScanTable, Table,
                                 TupleSchema, execute, col)
-    from supersonic_tpu.exprs import MakeDate, MakeDatetime
-    from supersonic_tpu.exprs.base import EvaluationError
+    from supersonic_jax.exprs import MakeDate, MakeDatetime
+    from supersonic_jax.exprs.base import EvaluationError
 
     t = Table.from_data(
         TupleSchema.of(("y", DataType.INT64, False),

@@ -3,9 +3,9 @@ sort_test.cc with tiny memory quotas to force spills)."""
 import numpy as np
 import pytest
 
-from supersonic_tpu import (DataType, ScanTable, Sort, SortKey, Table,
+from supersonic_jax import (DataType, ScanTable, Sort, SortKey, Table,
                             TupleSchema, execute)
-from supersonic_tpu.io.external import ExternalSorter, external_sort
+from supersonic_jax.io.external import ExternalSorter, external_sort
 
 SCHEMA = TupleSchema.of(("k", DataType.INT64, True),
                         ("s", DataType.STRING, True),
@@ -90,7 +90,7 @@ def test_external_sort_null_ordering():
 def test_native_merge_matches_streaming_merge():
     # result() takes the native C++ k-way code merge; result_chunks() is
     # the streaming python heap — both must produce identical rows
-    from supersonic_tpu import native
+    from supersonic_jax import native
     if not native.available():
         pytest.skip("native library unavailable")
     tables = make_tables(400, 5, seed=11)
@@ -107,7 +107,7 @@ def test_native_merge_matches_streaming_merge():
 
 
 def test_native_merge_float_desc_and_uint64():
-    from supersonic_tpu import native
+    from supersonic_jax import native
     if not native.available():
         pytest.skip("native library unavailable")
     schema = TupleSchema.of(("f", DataType.DOUBLE, True),
@@ -143,7 +143,7 @@ def test_sort_with_memory_limit_spills_and_matches():
     degrade to the external (spill) path, never be silently ignored."""
     tables = make_tables(n_rows=400, n_tables=1, seed=11)
     t = tables[0]
-    from supersonic_tpu import SortWithTempDirPrefix
+    from supersonic_jax import SortWithTempDirPrefix
 
     want = execute(Sort(ORDER, ScanTable(t))).to_pylist()
     # ~400 rows x ~40 B/row working set >> 2 KB limit -> must spill
@@ -158,8 +158,8 @@ def test_sort_with_memory_limit_spills_and_matches():
 def test_sort_with_ample_memory_limit_stays_on_device():
     tables = make_tables(n_rows=100, n_tables=1, seed=12)
     t = tables[0]
-    from supersonic_tpu import SortWithTempDirPrefix
-    from supersonic_tpu.ops.base import BindContext
+    from supersonic_jax import SortWithTempDirPrefix
+    from supersonic_jax.ops.base import BindContext
 
     op = SortWithTempDirPrefix(ORDER, ScanTable(t), memory_limit=1 << 30)
     ctx = BindContext()

@@ -5,7 +5,7 @@ from /root/reference) runs a fixed query set on deterministic seeded
 inputs and dumps both inputs and outputs in the reference's own FileSink
 wire format (file_io.cc:194).  The generated files are committed under
 tests/golden/.  Here each case reads the inputs back through
-`io.file_io.read_reference_file`, runs the SAME plan through the TPU
+`io.file_io.read_reference_file`, runs the SAME plan through this
 engine, and asserts row-for-row equality with the C++ engine's output:
 
   * INT/UINT/BOOL/DATE/STRING columns and NULL masks: bit-exact.
@@ -23,14 +23,14 @@ import pathlib
 import numpy as np
 import pytest
 
-from supersonic_tpu import (AggSpec, Aggregation, Compute, ConstInt32, Day,
+from supersonic_jax import (AggSpec, Aggregation, Compute, ConstInt32, Day,
                             DataType, DivideNulling, Exp, Filter, Greater,
                             GroupAggregate, HashJoin, If, IfNull, IsNull,
                             JoinType, KeyUniqueness, Length, MergeUnionAll,
                             Modulus, Month, Multiply, Plus, Projector,
                             ScalarAggregate, ScanTable, Sin, Sort, SortKey,
                             ToUpper, TupleSchema, Year, col, execute)
-from supersonic_tpu.io.file_io import read_reference_file
+from supersonic_jax.io.file_io import read_reference_file
 
 GOLDEN = pathlib.Path(__file__).parent / "golden"
 
@@ -45,7 +45,7 @@ SUM, MIN, MAX, COUNT = (Aggregation.SUM, Aggregation.MIN, Aggregation.MAX,
 # ENUM value maps are out-of-band in the FileSink wire format (the schema
 # itself is out-of-band, file_io.cc:319); these mirror the definitions in
 # refbuild/golden_dump.cc by column name.
-from supersonic_tpu import Attribute, EnumDefinition
+from supersonic_jax import Attribute, EnumDefinition
 
 GOLDEN_ENUMS = {
     "e": EnumDefinition(("iron", "zinc", "gold", "lead", "tin")),
@@ -296,21 +296,21 @@ def test_golden_expr_mix():
 
 def test_golden_limit():
     (t,) = _inputs("limit")
-    from supersonic_tpu import Limit
+    from supersonic_jax import Limit
     out = execute(Limit(137, 4321, ScanTable(t)))
     assert_tables_match(out, _golden_out("limit"))
 
 
 def test_golden_coalesce():
     t0, t1 = _inputs("coalesce")
-    from supersonic_tpu import Coalesce
+    from supersonic_jax import Coalesce
     out = execute(Coalesce(ScanTable(t0), ScanTable(t1)))
     assert_tables_match(out, _golden_out("coalesce"))
 
 
 def test_golden_agg_clusters():
     (t,) = _inputs("agg_clusters")
-    from supersonic_tpu import AggregateClusters
+    from supersonic_jax import AggregateClusters
     out = execute(AggregateClusters(
         ["k"],
         [AggSpec(SUM, "v", "sv"), AggSpec(Aggregation.MIN, "v", "mn"),
@@ -322,7 +322,7 @@ def test_golden_agg_clusters():
 
 def test_golden_rowid_join():
     left, right = _inputs("rowid_join")
-    from supersonic_tpu import RowidMergeJoin
+    from supersonic_jax import RowidMergeJoin
     out = execute(RowidMergeJoin(
         "fk", ScanTable(left), ScanTable(right),
         lhs_projector=Projector([("fk", "L.fk"), ("lv", "L.lv")]),
@@ -332,7 +332,7 @@ def test_golden_rowid_join():
 
 def test_golden_foreign_filter():
     filt, inp = _inputs("foreign_filter")
-    from supersonic_tpu import ForeignFilter
+    from supersonic_jax import ForeignFilter
     out = execute(ForeignFilter("fk", "key", ScanTable(inp),
                                 ScanTable(filt)))
     assert_tables_match(out, _golden_out("foreign_filter"))
@@ -343,7 +343,7 @@ def test_golden_proto_expression_interop():
     proto bytes that the reference's BuildExpressionFromProto evaluated
     (refbuild/golden_dump.cc::CaseProtoExpr) deserialize here through
     build_expression_from_proto_bytes and must produce the same rows."""
-    from supersonic_tpu.io.serialization import (
+    from supersonic_jax.io.serialization import (
         build_expression_from_proto_bytes)
 
     (t,) = _inputs("proto_expr")
@@ -362,7 +362,7 @@ def test_golden_tostring():
     Golden inputs stay below day 24855: the reference's DATE printer goes
     through a 32-bit time_t and wraps past 2038-01-19 (printing 1901/02
     dates) — a reference bug this engine does not reproduce."""
-    from supersonic_tpu import ToString
+    from supersonic_jax import ToString
 
     (t,) = _inputs("tostring")
     out = execute(Compute(
@@ -379,7 +379,7 @@ def test_golden_stateful():
     state across 1024-row views; this engine computes the same semantics
     as whole-column parallel scans (exprs/stateful.py) — results must be
     identical row for row."""
-    from supersonic_tpu import (Changed, RunningMinWithFlush, RunningSum,
+    from supersonic_jax import (Changed, RunningMinWithFlush, RunningSum,
                                 Smudge, SmudgeIf)
 
     (t,) = _inputs("stateful")
@@ -397,9 +397,9 @@ def test_golden_string_ops():
     """String transforms vs the real engine (string_expressions.h:73-102;
     string_bound_expressions.cc): MySQL-style Substring incl. negative
     positions, 1-based StringOffset, StringReplace, and a Concat of two
-    NON-constant string columns — the TPU engine's cross-product
+    NON-constant string columns — this engine's cross-product
     dictionary device path."""
-    from supersonic_tpu import (Concat, StringOffset, StringReplace,
+    from supersonic_jax import (Concat, StringOffset, StringReplace,
                                 Substring)
 
     (t,) = _inputs("string_ops")
@@ -419,7 +419,7 @@ def test_golden_makedate():
     -> Mar 2; date_evaluators.cc:36-58); MakeDatetime adds
     hour/minute/second unchecked and NULLs pre-epoch date parts
     (date_bound_expressions.cc:123-126)."""
-    from supersonic_tpu import AddMonths, Const, MakeDate, MakeDatetime
+    from supersonic_jax import AddMonths, Const, MakeDate, MakeDatetime
 
     (t,) = _inputs("makedate")
     out = execute(Compute(
@@ -439,7 +439,7 @@ def test_golden_date_local():
     The engine side compiles the same IANA zone into day-LUT offsets
     (exprs/tz.py); every column must be bit-exact, including the 2024 DST
     boundary instants the input embeds."""
-    from supersonic_tpu import (DateFormat, DateFormatLocal, DayLocal,
+    from supersonic_jax import (DateFormat, DateFormatLocal, DayLocal,
                                 HourLocal, MinuteLocal, MonthLocal,
                                 WeekdayLocal, YearLocal, set_local_timezone)
 
@@ -467,7 +467,7 @@ def test_golden_date_local():
 def test_reference_format_roundtrip(tmp_path):
     """write_reference_file emits the same wire format read_reference_file
     parses — the write half of interchange with the C++ FileInputCursor."""
-    from supersonic_tpu.io.file_io import write_reference_file
+    from supersonic_jax.io.file_io import write_reference_file
 
     for case in ("guide_join", "expr_mix", "bench_merge"):
         for i, (fname, rows, schema) in enumerate(MANIFEST[case]["in"]):
@@ -525,10 +525,10 @@ def test_golden_enum_binary():
 def test_golden_tostring_no_domain_hints():
     """The SAME golden case as test_golden_tostring but WITHOUT domain=
     hints: unbounded ints render through the deferred-dictionary path
-    (row-position codes on device, PrintTyped rendering at execute —
-    VERDICT r3 next #10) and must still match the C++ engine's output
+    (row-position codes on device, PrintTyped rendering at
+    execute) and must still match the C++ engine's output
     byte for byte."""
-    from supersonic_tpu import ToString
+    from supersonic_jax import ToString
 
     (t,) = _inputs("tostring")
     out = execute(Compute(

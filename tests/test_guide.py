@@ -1,14 +1,13 @@
 """The reference's tutorial query set, reproduced end-to-end.
 
 These mirror /root/reference/test/guide/{primer,group_sort,join}.cc — the
-"reference query set" whose outputs define the correctness bar
-(BASELINE.md).  Goldens are computed programmatically the same way the
+"reference query set" whose outputs define the correctness bar.  Goldens are computed programmatically the same way the
 guide tests do (std::map cross-check, primer.cc:302-313).
 """
 import numpy as np
 import pytest
 
-from supersonic_tpu import (AggSpec, Aggregation, AttributeAt, Compute,
+from supersonic_jax import (AggSpec, Aggregation, AttributeAt, Compute,
                             DataType, ExtendedSort, GroupAggregate, HashJoin,
                             JoinType, KeyUniqueness, Projector, ScanTable,
                             Sort, Table, TupleSchema, col, execute)

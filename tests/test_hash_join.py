@@ -1,7 +1,7 @@
 """Hash join tests (reference analogue: cursor/core/hash_join_test.cc)."""
 import pytest
 
-from supersonic_tpu import (DOUBLE, INT64, STRING, DataType, HashJoin, JoinType,
+from supersonic_jax import (DOUBLE, INT64, STRING, DataType, HashJoin, JoinType,
                             KeyUniqueness, Projector, ScanTable, Table,
                             TupleSchema, execute)
 
@@ -150,7 +150,7 @@ def test_unique_join_dense_vs_merge_paths(allow_dense):
 def test_dense_path_is_selected_and_guard_flags():
     import jax
     import numpy as np
-    from supersonic_tpu.ops.base import compile_plan
+    from supersonic_jax.ops.base import compile_plan
 
     lhs, rhs = _dense_tables()
     plan = HashJoin(JoinType.INNER, ["fk"], ["pk"], ScanTable(lhs),
@@ -160,7 +160,7 @@ def test_dense_path_is_selected_and_guard_flags():
     assert not np.asarray(flags).any()
     # re-run the SAME compiled program with a build key far outside the
     # planned dense range -> the range-guard flag must trip
-    from supersonic_tpu.batch import Column
+    from supersonic_jax.batch import Column
     import jax.numpy as jnp
     rt = leaves[1]
     newvals = jnp.asarray(np.array([3, 5, 1 << 22, 0], dtype=np.int32))
@@ -217,8 +217,8 @@ def test_dense_csr_guard_flag_not_unique():
     import jax
     import numpy as np
     import jax.numpy as jnp
-    from supersonic_tpu.ops.base import compile_plan
-    from supersonic_tpu.batch import Column
+    from supersonic_jax.ops.base import compile_plan
+    from supersonic_jax.batch import Column
 
     ls = TupleSchema.of(("fk", DataType.INT32, False))
     rs = TupleSchema.of(("pk", DataType.INT32, False))
@@ -269,7 +269,7 @@ def test_string_key_dense_codes_vs_merge(jt, uniq):
 
 
 def test_enum_key_dense_join():
-    from supersonic_tpu import EnumDefinition
+    from supersonic_jax import EnumDefinition
     ed = EnumDefinition(("red", "green", "blue"))
     ls = TupleSchema.of(("c", DataType.ENUM, True, ed), ("x", INT64))
     rs = TupleSchema.of(("c2", DataType.ENUM, True, ed), ("y", INT64))
@@ -364,7 +364,7 @@ def _rowid_tables(kmin=100):
 
 
 def test_rowid_direct_selected():
-    from supersonic_tpu.ops.base import bind_plan
+    from supersonic_jax.ops.base import bind_plan
     lhs, rhs = _rowid_tables()
     bound, _ = bind_plan(ScanTable(rhs))
     assert "pk" in bound.rowid
@@ -390,8 +390,8 @@ def test_rowid_direct_guard_flags_on_rerun():
     import jax
     import numpy as np
     import jax.numpy as jnp
-    from supersonic_tpu.batch import Column
-    from supersonic_tpu.ops.base import compile_plan
+    from supersonic_jax.batch import Column
+    from supersonic_jax.ops.base import compile_plan
 
     lhs, rhs = _rowid_tables()
     plan = HashJoin(JoinType.INNER, ["fk"], ["pk"], ScanTable(lhs),
@@ -414,7 +414,7 @@ def test_rowid_direct_guard_flags_on_rerun():
 def test_rowid_direct_under_group_aggregate():
     # masked bind: the rowid join's output feeds a dense group-by
     import numpy as np
-    from supersonic_tpu import (AggSpec, Aggregation, GroupAggregate,
+    from supersonic_jax import (AggSpec, Aggregation, GroupAggregate,
                                 GroupAggregateOptions)
     rng = np.random.default_rng(0)
     n, d = 5000, 64

@@ -5,11 +5,11 @@ import io
 
 import pytest
 
-from supersonic_tpu import (DOUBLE, INT64, STRING, Compute, Filter,
+from supersonic_jax import (DOUBLE, INT64, STRING, Compute, Filter,
                             GroupAggregate, AggSpec, Aggregation, ScanTable,
                             Table, TupleSchema, col, execute)
-from supersonic_tpu.io import (build_expression, read_table, write_table)
-from supersonic_tpu.bench import benchmark_plan, format_stats, to_dot
+from supersonic_jax.io import (build_expression, read_table, write_table)
+from supersonic_jax.bench import benchmark_plan, format_stats, to_dot
 
 
 def make_table():
@@ -83,8 +83,8 @@ def test_benchmark_harness():
 
 
 def test_build_sort_order_and_aggregation():
-    from supersonic_tpu import Sort, GroupAggregate, STRING
-    from supersonic_tpu.io import build_aggregation, build_sort_order
+    from supersonic_jax import Sort, GroupAggregate, STRING
+    from supersonic_jax.io import build_aggregation, build_sort_order
     t = make_table()
     order = build_sort_order([{"column": "a", "ascending": False}])
     out = execute(Sort(order, ScanTable(t)))
@@ -98,8 +98,8 @@ def test_build_sort_order_and_aggregation():
 
 
 def test_to_string_host():
-    from supersonic_tpu import DataType, TupleSchema as TS
-    from supersonic_tpu.ops.host import to_string
+    from supersonic_jax import DataType, TupleSchema as TS
+    from supersonic_jax.ops.host import to_string
     t = Table.from_data(
         TS.of(("d", DataType.DATE), ("n", INT64)),
         {"d": [0, 365, None], "n": [5, None, 7]})
@@ -115,9 +115,9 @@ def test_to_string_host():
 def test_file_io_enum_roundtrip(tmp_path):
     # ENUM names + nulls survive the file format (enum map stored in the
     # schema header; reference keeps schemas out of band)
-    from supersonic_tpu.schema import Attribute, EnumDefinition, TupleSchema
-    from supersonic_tpu import DataType, Table
-    from supersonic_tpu.io.file_io import load, save
+    from supersonic_jax.schema import Attribute, EnumDefinition, TupleSchema
+    from supersonic_jax import DataType, Table
+    from supersonic_jax.io.file_io import load, save
 
     e = EnumDefinition(("RED", "GREEN", "BLUE"))
     schema = TupleSchema([Attribute("c", DataType.ENUM, True, e),
@@ -130,8 +130,8 @@ def test_file_io_enum_roundtrip(tmp_path):
 
 
 def test_file_io_binary_roundtrip(tmp_path):
-    from supersonic_tpu import DataType, Table, TupleSchema
-    from supersonic_tpu.io.file_io import load, save
+    from supersonic_jax import DataType, Table, TupleSchema
+    from supersonic_jax.io.file_io import load, save
 
     schema = TupleSchema.of(("b", DataType.BINARY, True))
     t = Table.from_data(schema, {"b": [b"\x00\xff", None, b"", b"abc"]})
@@ -143,7 +143,7 @@ def test_file_io_binary_roundtrip(tmp_path):
 
 def test_from_arrays_constructor():
     import numpy as np
-    from supersonic_tpu import DataType, Table, TupleSchema
+    from supersonic_jax import DataType, Table, TupleSchema
 
     schema = TupleSchema.of(("x", DataType.INT64, True),
                             ("y", DataType.DOUBLE, False))
@@ -162,8 +162,8 @@ def test_file_io_large_fast_path(tmp_path):
     import time
 
     import numpy as np
-    from supersonic_tpu import DataType, Table, TupleSchema
-    from supersonic_tpu.io.file_io import load, save
+    from supersonic_jax import DataType, Table, TupleSchema
+    from supersonic_jax.io.file_io import load, save
 
     n = 200_000
     rng = np.random.default_rng(7)
@@ -189,10 +189,10 @@ def test_file_io_large_fast_path(tmp_path):
 
 
 def test_describe_plan():
-    from supersonic_tpu import (AggSpec, Aggregation, DataType, Filter,
+    from supersonic_jax import (AggSpec, Aggregation, DataType, Filter,
                                 GroupAggregate, ScanTable, Sort, SortKey,
                                 Table, TupleSchema, col)
-    from supersonic_tpu.bench import describe_plan
+    from supersonic_jax.bench import describe_plan
 
     t = Table.from_data(
         TupleSchema.of(("g", DataType.INT32), ("v", DataType.DOUBLE)),
@@ -213,7 +213,7 @@ def test_describe_plan():
 # ---------------------------------------------------------------------------
 
 def _pb():
-    from supersonic_tpu.io import expressions_pb2
+    from supersonic_jax.io import expressions_pb2
     return expressions_pb2
 
 
@@ -245,7 +245,7 @@ def test_proto_expression_roundtrip_wire_bytes():
     # build (a + 5) * a as a proto, serialize, rebuild from BYTES — the
     # reference's wire contract end to end
     pb = _pb()
-    from supersonic_tpu.io import build_expression_from_proto_bytes
+    from supersonic_jax.io import build_expression_from_proto_bytes
     desc = _op(pb.MULTIPLY, _op(pb.ADD, _var("a"), _const_i64(5)), _var("a"))
     expr = build_expression_from_proto_bytes(desc.SerializeToString())
     out = execute(Compute(expr, ScanTable(make_table())))
@@ -254,7 +254,7 @@ def test_proto_expression_roundtrip_wire_bytes():
 
 def test_proto_expression_cast_and_null():
     pb = _pb()
-    from supersonic_tpu.io import build_expression_from_proto
+    from supersonic_jax.io import build_expression_from_proto
     # CAST(DOUBLE, a): leading DATA_TYPE constant argument
     tc = pb.ExpressionDescription(type=pb.CONSTANT)
     tc.constant.type = pb.DATA_TYPE
@@ -273,7 +273,7 @@ def test_proto_expression_cast_and_null():
 
 def test_proto_expression_case_if_in():
     pb = _pb()
-    from supersonic_tpu.io import build_expression_from_proto
+    from supersonic_jax.io import build_expression_from_proto
     # CASE a WHEN 1 THEN 10 ELSE 99  (proto arg order: sel, else, when, then)
     desc = _op(pb.CASE, _var("a"), _const_i64(99), _const_i64(1),
                _const_i64(10))
@@ -289,7 +289,7 @@ def test_proto_expression_case_if_in():
 
 def test_proto_expression_regexp_and_tuple():
     pb = _pb()
-    from supersonic_tpu.io import build_expression_from_proto
+    from supersonic_jax.io import build_expression_from_proto
     pat = pb.ExpressionDescription(type=pb.CONSTANT)
     pat.constant.type = pb.STRING
     pat.constant.string_value = "y+"
@@ -314,7 +314,7 @@ def test_proto_expression_regexp_and_tuple():
 def test_proto_expression_errors_and_custom_function():
     pb = _pb()
     import pytest as _pytest
-    from supersonic_tpu.io import (SerializationError,
+    from supersonic_jax.io import (SerializationError,
                                    build_expression_from_proto,
                                    register_function)
     with _pytest.raises(SerializationError):  # unimplemented in ref too
@@ -330,7 +330,7 @@ def test_proto_expression_errors_and_custom_function():
     fd.function_call.argument.add().CopyFrom(_var("a"))
     with _pytest.raises(SerializationError):
         build_expression_from_proto(fd)
-    from supersonic_tpu import exprs as E
+    from supersonic_jax import exprs as E
     register_function("double_it", lambda e: E.Multiply(e, E.ConstInt64(2)))
     out = execute(Compute(build_expression_from_proto(fd),
                           ScanTable(make_table())))
@@ -339,7 +339,7 @@ def test_proto_expression_errors_and_custom_function():
 
 def test_proto_path_and_pi():
     pb = _pb()
-    from supersonic_tpu.io import build_expression_from_proto
+    from supersonic_jax.io import build_expression_from_proto
     d = pb.ExpressionDescription(type=pb.PATH)
     d.path.node.append("b")
     out = execute(Compute(build_expression_from_proto(d),
@@ -355,7 +355,7 @@ def test_benchmark_join_phase_split():
     """HashJoin nodes report index_set_up_time vs matching_time
     (reference: cursor_statistics.h:153-167, benchmark.proto:40-47)."""
     import numpy as np
-    from supersonic_tpu import (HashJoin, JoinType, KeyUniqueness,
+    from supersonic_jax import (HashJoin, JoinType, KeyUniqueness,
                                 TupleSchema, DataType, Table)
 
     rng = np.random.default_rng(5)

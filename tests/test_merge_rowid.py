@@ -2,7 +2,7 @@
 merge_union_all_test.cc, rowid_merge_join_test.cc, foreign_filter_test.cc)."""
 import pytest
 
-from supersonic_tpu import (INT64, STRING, EvaluationError, ForeignFilter,
+from supersonic_jax import (INT64, STRING, EvaluationError, ForeignFilter,
                             MergeUnionAll, Projector, RowidMergeJoin,
                             ScanTable, Sort, Table, TupleSchema, execute)
 

@@ -2,7 +2,7 @@
 hashing-expression tests."""
 import numpy as np
 
-from supersonic_tpu import (INT64, STRING, AggSpec, Aggregation, Coalesce,
+from supersonic_jax import (INT64, STRING, AggSpec, Aggregation, Coalesce,
                             Compute, Const, Fingerprint, Filter, Hash,
                             Project, Projector, RegexpExtract,
                             RegexpFullMatch, RegexpPartialMatch,
@@ -85,8 +85,8 @@ def test_group_concat_fast_matches_python():
     with NULL keys, NULL values, numeric inputs and DISTINCT."""
     import numpy as np
 
-    from supersonic_tpu import DataType
-    from supersonic_tpu.ops import host as host_mod
+    from supersonic_jax import DataType
+    from supersonic_jax.ops import host as host_mod
 
     rng = np.random.default_rng(17)
     n = 500

@@ -1,8 +1,7 @@
 """Execute the multi-host layer for real: two OS processes join via
 ``jax.distributed.initialize`` over localhost (CPU backend, 4 virtual
 devices each) and run a distributed group-aggregate over the resulting
-8-device global mesh (VERDICT r2 missing #4 — multihost.py must be
-exercised, not just importable).
+8-device global mesh (multihost.py is exercised, not just imported).
 
 Reference analogue: none (the reference is single-process); this tests
 the new framework's own deployment contract (parallel/multihost.py).

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from supersonic_tpu import native
-from supersonic_tpu.dictionary import Dictionary, encode
+from supersonic_jax import native
+from supersonic_jax.dictionary import Dictionary, encode
 
 
 def test_native_builds():

@@ -1,13 +1,13 @@
 """Tests for the OperationTest sweep harness itself (reference:
 operation_testing fixture usage patterns across cursor/core tests)."""
-from supersonic_tpu import (INT64, AggSpec, Aggregation, Filter,
+from supersonic_jax import (INT64, AggSpec, Aggregation, Filter,
                             GroupAggregate, Sort, TupleSchema, col)
-from supersonic_tpu.testing import OperationTest, check_operation
+from supersonic_jax.testing import OperationTest, check_operation
 
 
 def test_filter_sweep():
     check_operation(
-        lambda t: Filter(col("a") > 2, __import__("supersonic_tpu").ScanTable(t)),
+        lambda t: Filter(col("a") > 2, __import__("supersonic_jax").ScanTable(t)),
         [(TupleSchema.of(("a", INT64),), {"a": [1, 3, None, 5]})],
         [(3,), (5,)],
     )
@@ -30,12 +30,12 @@ def test_sort_sweep_ignore_order_off():
 
 
 def test_hash_join_sweep():
-    from supersonic_tpu import (HashJoin, JoinType, KeyUniqueness, ScanTable)
+    from supersonic_jax import (HashJoin, JoinType, KeyUniqueness, ScanTable)
     check_operation(
         lambda lt, rt: HashJoin(
             JoinType.LEFT_OUTER, ["fk"], ["pk"],
-            __import__("supersonic_tpu").ScanTable(lt),
-            __import__("supersonic_tpu").ScanTable(rt),
+            __import__("supersonic_jax").ScanTable(lt),
+            __import__("supersonic_jax").ScanTable(rt),
             KeyUniqueness.UNIQUE),
         [(TupleSchema.of(("fk", INT64),), {"fk": [1, 9, 2]}),
          (TupleSchema.of(("pk", INT64), ("w", INT64)),
@@ -45,11 +45,11 @@ def test_hash_join_sweep():
 
 
 def test_merge_union_sweep():
-    from supersonic_tpu import MergeUnionAll
+    from supersonic_jax import MergeUnionAll
     check_operation(
         lambda a, b: MergeUnionAll(
-            ["k"], [__import__("supersonic_tpu").ScanTable(a),
-                    __import__("supersonic_tpu").ScanTable(b)]),
+            ["k"], [__import__("supersonic_jax").ScanTable(a),
+                    __import__("supersonic_jax").ScanTable(b)]),
         [(TupleSchema.of(("k", INT64),), {"k": [1, 5]}),
          (TupleSchema.of(("k", INT64),), {"k": [2, 3]})],
         [(1,), (2,), (3,), (5,)],
@@ -57,12 +57,12 @@ def test_merge_union_sweep():
 
 
 def test_aggregate_clusters_sweep():
-    from supersonic_tpu import AggregateClusters, AggSpec, Aggregation
+    from supersonic_jax import AggregateClusters, AggSpec, Aggregation
     check_operation(
         lambda t: AggregateClusters(
             ["k"], [AggSpec(Aggregation.MIN, "v", "mn"),
                     AggSpec(Aggregation.MAX, "v", "mx")],
-            __import__("supersonic_tpu").ScanTable(t)),
+            __import__("supersonic_jax").ScanTable(t)),
         [(TupleSchema.of(("k", INT64), ("v", INT64)),
           {"k": [1, 1, 2, 1], "v": [3, 1, 9, 4]})],
         [(1, 1, 3), (2, 9, 9), (1, 4, 4)],
@@ -73,7 +73,7 @@ def test_masked_join_under_sort_sweep():
     # Sort over a UNIQUE join binds the join *masked* (uncompacted output
     # + keep mask fused into the sort's pad key); dense INT keys take the
     # fat-LUT path.  Sweep capacities to shake out padding bugs.
-    from supersonic_tpu import (HashJoin, JoinType, KeyUniqueness, ScanTable,
+    from supersonic_jax import (HashJoin, JoinType, KeyUniqueness, ScanTable,
                                 Sort)
     check_operation(
         lambda lt, rt: Sort(
@@ -89,7 +89,7 @@ def test_masked_join_under_sort_sweep():
 
 
 def test_masked_left_outer_join_under_groupby_sweep():
-    from supersonic_tpu import (AggSpec, Aggregation, GroupAggregate,
+    from supersonic_jax import (AggSpec, Aggregation, GroupAggregate,
                                 HashJoin, JoinType, KeyUniqueness, ScanTable)
     check_operation(
         lambda lt, rt: GroupAggregate(
@@ -108,7 +108,7 @@ def test_masked_left_outer_join_under_groupby_sweep():
 def test_filtered_masked_join_under_sort_sweep():
     # Filter between Sort and the UNIQUE join: unwrap_filters folds the
     # predicate into the join's keep mask.
-    from supersonic_tpu import (Filter, HashJoin, JoinType, KeyUniqueness,
+    from supersonic_jax import (Filter, HashJoin, JoinType, KeyUniqueness,
                                 ScanTable, Sort, col)
     check_operation(
         lambda lt, rt: Sort(

@@ -11,10 +11,10 @@ row-wise Python oracle, NULL keys never matching on either side.
 import numpy as np
 import pytest
 
-from supersonic_tpu import (DataType, Filter, HashJoin, JoinType,
+from supersonic_jax import (DataType, Filter, HashJoin, JoinType,
                             KeyUniqueness, Projector, ScanTable, Table,
                             TupleSchema, col, execute)
-from supersonic_tpu.ops.union import UnionAll
+from supersonic_jax.ops.union import UnionAll
 
 
 def _rows(res):
@@ -149,7 +149,7 @@ def test_union_all_basic():
 
 
 def test_union_all_schema_mismatch():
-    from supersonic_tpu.schema import SchemaError
+    from supersonic_jax.schema import SchemaError
 
     A = TupleSchema.of(("a", DataType.INT64),)
     B = TupleSchema.of(("b", DataType.INT64),)
@@ -162,7 +162,7 @@ def test_outer_joins_capacity_sweep():
     """OperationTest-style sweep (testing/operation_testing.py): the
     outer-join rewrite and UnionAll must not leak capacity padding into
     results at any input capacity."""
-    from supersonic_tpu.testing.operation_testing import OperationTest
+    from supersonic_jax.testing.operation_testing import OperationTest
 
     L = TupleSchema.of(("k", DataType.INT64, True), ("lv", DataType.INT64))
     R = TupleSchema.of(("rk", DataType.INT64, True), ("rv", DataType.INT64))

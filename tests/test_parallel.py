@@ -7,10 +7,10 @@ import pytest
 
 import jax
 
-from supersonic_tpu import (AggSpec, Aggregation, DataType, GroupAggregate,
+from supersonic_jax import (AggSpec, Aggregation, DataType, GroupAggregate,
                             HashJoin, JoinType, KeyUniqueness, ScanTable,
                             Sort, Table, TupleSchema, execute)
-from supersonic_tpu.parallel import (collect_table, dist_group_aggregate,
+from supersonic_jax.parallel import (collect_table, dist_group_aggregate,
                                      dist_hash_join, dist_map, dist_sort,
                                      distribute_table, make_mesh,
                                      run_local_plan, shuffle)
@@ -114,7 +114,7 @@ def test_left_outer_dist_join():
 
 
 def test_skew_aware_join_matches_local():
-    from supersonic_tpu.parallel.dist import dist_hash_join_skew
+    from supersonic_jax.parallel.dist import dist_hash_join_skew
     rng = np.random.default_rng(11)
     n, m = 400, 50
     # heavy skew: 60% of probe rows hit key 7
@@ -141,7 +141,7 @@ def test_skew_aware_join_matches_local():
 
 @pytest.mark.parametrize("jt", [JoinType.INNER, JoinType.LEFT_OUTER])
 def test_ring_pipelined_join_matches_local(jt):
-    from supersonic_tpu.parallel.dist import dist_hash_join_ring
+    from supersonic_jax.parallel.dist import dist_hash_join_ring
     rng = np.random.default_rng(13)
     n, m = 300, 40
     fk = rng.integers(0, m + 10, n)  # some keys have no build match
@@ -173,7 +173,7 @@ def test_skewed_exchange_overflow_raises():
     whose buffer is deliberately undersized.  DISTINCT forces the
     raw-row shuffle (the pregroup path would legitimately collapse the
     hot key to one row per shard before the exchange)."""
-    from supersonic_tpu.exprs.base import EvaluationError
+    from supersonic_jax.exprs.base import EvaluationError
 
     mesh = make_mesh()
     n = 400
@@ -190,7 +190,7 @@ def test_skewed_exchange_overflow_raises():
 
 def test_skewed_join_shuffle_overflow_raises():
     """The join-side repartition must also surface overflow."""
-    from supersonic_tpu.exprs.base import EvaluationError
+    from supersonic_jax.exprs.base import EvaluationError
 
     mesh = make_mesh()
     n = 400
@@ -231,7 +231,7 @@ def test_dist_group_aggregate_quota_pregroup_stays_exact():
     produces the exact answer (aggregate.h:233-246 contract)."""
     import warnings
 
-    from supersonic_tpu import GroupAggregateOptions
+    from supersonic_jax import GroupAggregateOptions
 
     mesh = make_mesh()
     fact, _ = make_tables(n=300, m=30)
@@ -275,8 +275,8 @@ def test_full_outer_dist_join():
 
 
 def test_dist_distinct_aggregate_matches_local():
-    """Positive correctness of the raw-shuffle DISTINCT path
-    (VERDICT r2 weak #4): a distributed distinct-aggregate must equal
+    """Positive correctness of the raw-shuffle DISTINCT path:
+    a distributed distinct-aggregate must equal
     the single-chip GroupAggregate on the same data."""
     rng = np.random.default_rng(7)
     n = 500

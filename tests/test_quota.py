@@ -13,11 +13,11 @@ import warnings
 import numpy as np
 import pytest
 
-from supersonic_tpu import (AggSpec, Aggregation, BestEffortGroupAggregate,
+from supersonic_jax import (AggSpec, Aggregation, BestEffortGroupAggregate,
                             DataType, GroupAggregate, GroupAggregateOptions,
                             ScanTable, Table, TupleSchema, execute)
-from supersonic_tpu.exprs.base import EvaluationError
-from supersonic_tpu.ops.aggregate import _quota_rows
+from supersonic_jax.exprs.base import EvaluationError
+from supersonic_jax.ops.aggregate import _quota_rows
 
 SUM, MIN, MAX, COUNT = (Aggregation.SUM, Aggregation.MIN, Aggregation.MAX,
                         Aggregation.COUNT)
@@ -116,7 +116,7 @@ def test_best_effort_enforce_quota_is_strict():
 # --- HybridGroupAggregate: beyond-quota spill path (reference:
 # aggregate_groups.cc:1146, design :491-534) ---------------------------------
 
-from supersonic_tpu import HybridGroupAggregate  # noqa: E402
+from supersonic_jax import HybridGroupAggregate  # noqa: E402
 
 
 def _as_sorted_rows(t):
@@ -210,12 +210,12 @@ def test_hybrid_bind_is_pure():
     ExternalSorter runs only at execution (prepare_leaves) time."""
     import numpy as np
 
-    import supersonic_tpu.io.external as EXT
-    from supersonic_tpu import (AggSpec, Aggregation, DataType,
+    import supersonic_jax.io.external as EXT
+    from supersonic_jax import (AggSpec, Aggregation, DataType,
                                 GroupAggregateOptions, HybridGroupAggregate,
                                 ScanTable, Table, TupleSchema)
-    from supersonic_tpu.ops.base import compile_plan, prepare_leaves
-    from supersonic_tpu.ops.sort import SortWithTempDirPrefix
+    from supersonic_jax.ops.base import compile_plan, prepare_leaves
+    from supersonic_jax.ops.sort import SortWithTempDirPrefix
 
     calls = []
     orig = EXT.ExternalSorter.__init__

@@ -1,13 +1,12 @@
-"""ops/scan32: pinned-i32 two-level prefix scans (the x64-mode
-jnp.cumsum promotion to emulated int64 was costing 5.5 ms per 8M-row
-"i32" cumsum on chip — BASELINE.md r4b)."""
+"""ops/scan32: pinned-i32 two-level prefix scans (x64 mode would
+promote a plain jnp.cumsum of i32 to int64)."""
 import numpy as np
 import pytest
 
 import jax
 import jax.numpy as jnp
 
-from supersonic_tpu.ops.scan32 import cummax_i32, cumsum_i32
+from supersonic_jax.ops.scan32 import cummax_i32, cumsum_i32
 
 
 @pytest.mark.parametrize("n", [0, 1, 7, 511, 512, 513, 1 << 16,

@@ -1,7 +1,7 @@
 """Blocked segmented-scan primitive tests (multi-tile sizes)."""
 import numpy as np
 
-from supersonic_tpu.ops.segscan import (seg_carry_first, seg_cummax,
+from supersonic_jax.ops.segscan import (seg_carry_first, seg_cummax,
                                         seg_cummin, seg_cumsum)
 
 

@@ -3,7 +3,7 @@ NULL ordering contract: NULL == NULL, NULL < non-NULL ascending
 (sort.cc:44-47); DESC reverses the whole comparator (NULLs last)."""
 import pytest
 
-from supersonic_tpu import (DOUBLE, INT64, STRING, ExtendedSort, ScanTable,
+from supersonic_jax import (DOUBLE, INT64, STRING, ExtendedSort, ScanTable,
                             Sort, SortKey, Table, TupleSchema, execute)
 
 
@@ -82,7 +82,7 @@ def test_sort_with_padding(capacity):
 
 
 def test_sort_result_projector():
-    from supersonic_tpu import Projector
+    from supersonic_jax import Projector
     out = execute(Sort(["a"], ScanTable(make_table()),
                        result_projector=Projector([("b", "bb")])))
     assert out.schema.names() == ("bb",)
@@ -93,7 +93,7 @@ def test_extended_sort_limit_topk_path():
     # limit << capacity takes the top-K (perm-sort + small gather) path;
     # results must match the full sort, including NULL ordering and ties
     import numpy as np
-    from supersonic_tpu import (DataType, ExtendedSort, ScanTable, SortKey,
+    from supersonic_jax import (DataType, ExtendedSort, ScanTable, SortKey,
                                 Table, TupleSchema, execute)
     rng = np.random.default_rng(13)
     n = 300

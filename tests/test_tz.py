@@ -13,14 +13,14 @@ import zoneinfo
 import numpy as np
 import pytest
 
-from supersonic_tpu import (Compute, DataType, DateFormat, DateFormatLocal,
+from supersonic_jax import (Compute, DataType, DateFormat, DateFormatLocal,
                             HourLocal, MinuteLocal, MonthLocal, ScanTable,
                             SecondLocal, Table, TupleSchema, WeekdayLocal,
                             YearDayLocal, YearLocal, col, execute,
                             set_local_timezone)
-from supersonic_tpu.exprs import tz
-from supersonic_tpu.ops.base import EvaluationError
-from supersonic_tpu.types import TypeError_
+from supersonic_jax.exprs import tz
+from supersonic_jax.ops.base import EvaluationError
+from supersonic_jax.types import TypeError_
 
 
 @pytest.fixture
@@ -99,7 +99,7 @@ def test_dateformat_utc_formats(local_tz):
 
 
 def test_dateformat_granule_inference():
-    from supersonic_tpu.exprs.date import _format_granule_sec
+    from supersonic_jax.exprs.date import _format_granule_sec
 
     assert _format_granule_sec("%Y/%m/%d") == 86_400
     assert _format_granule_sec("%H o'clock") == 3600
